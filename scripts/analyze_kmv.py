@@ -43,11 +43,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pde_inverse_tpu.config import preset
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.ops import autodiff as ad
-from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
-from pde_inverse_tpu.utils.cache import enable_compilation_cache
+from pde_inverse.config import preset
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.ops import autodiff as ad
+from pde_inverse.problems import KineticMcKeanVlasovQuadratic
+from pde_inverse.utils.cache import enable_compilation_cache
 
 
 def _load_checkpoint_params(ckpt_dir: str, use_ema_state: bool = False):
@@ -134,7 +134,7 @@ def main(ckpt_dirs: str, overrides):
         dirs = [d for d in ckpt_dirs.split(",") if d]
         members = [_load_checkpoint_params(d, use_ema_state) for d in dirs]
 
-        # The module must match the checkpoint's hypothesis: flax.apply
+        # The module must match the checkpoint's hypothesis: module.apply
         # SILENTLY ignores parameter entries the module never reads, so
         # rebuilding without the quadratic head while the checkpoint
         # carries quad_A/quad_b evaluates the Fourier component alone
@@ -187,7 +187,7 @@ def main(ckpt_dirs: str, overrides):
         inst = KineticMcKeanVlasovQuadratic(cfg, rng_problem)
         # One module PER member: mixed-class stacks (e.g. fourier-kernel
         # production members + MLP run iterates) are the round-4
-        # bias-diversity lever, and flax.apply would silently ignore
+        # bias-diversity lever, and module.apply would silently ignore
         # params a mismatched module never reads (the quad-head pitfall
         # above, generalized).
         nets = []

@@ -35,11 +35,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pde_inverse_tpu.config import preset
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.ops import autodiff as ad
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
-from pde_inverse_tpu.utils.cache import enable_compilation_cache
+from pde_inverse.config import preset
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.ops import autodiff as ad
+from pde_inverse.problems import KineticFokkerPlanckGMM
+from pde_inverse.utils.cache import enable_compilation_cache
 
 
 def _load_checkpoint_params(ckpt_dir: str, use_ema_state: bool):

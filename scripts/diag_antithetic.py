@@ -22,9 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.flatten_util import ravel_pytree
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.problems import KineticFokkerPlanckGMM
 
 
 def grad_variance(cfg, rng, n_keys=32, warm_steps=20):

@@ -19,11 +19,11 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from pde_inverse_tpu.config import preset
-from pde_inverse_tpu.models.mlp import PotentialMLP, ResNetPotential
-from pde_inverse_tpu.ops import autodiff as ad
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
-from pde_inverse_tpu.utils.cache import enable_compilation_cache
+from pde_inverse.config import preset
+from pde_inverse.models.mlp import PotentialMLP, ResNetPotential
+from pde_inverse.ops import autodiff as ad
+from pde_inverse.problems import KineticFokkerPlanckGMM
+from pde_inverse.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 

@@ -1,14 +1,14 @@
 """Worker script for the 2-process jax.distributed smoke test.
 
 Each process contributes its local CPU devices to a global mesh through the
-SAME code path a TPU pod slice uses: ``main.maybe_init_distributed`` (env
+SAME code path a multi-host GPU job uses: ``main.maybe_init_distributed`` (env
 opt-in) followed by ``parallel.mesh.build_mesh`` over the global device
 set.  The psum assertion proves cross-process collectives (Gloo on CPU,
-ICI/DCN on TPU) actually reduce over every process's shard.
+NCCL on GPUs) actually reduce over every process's shard.
 
 Run (one line per process, same coordinator):
-    PDE_INVERSE_TPU_MULTIHOST=1 PDE_INVERSE_TPU_COORDINATOR=<addr> \
-    PDE_INVERSE_TPU_NUM_PROCESSES=<n> PDE_INVERSE_TPU_PROCESS_ID=<i> \
+    PDE_INVERSE_MULTIHOST=1 PDE_INVERSE_COORDINATOR=<addr> \
+    PDE_INVERSE_NUM_PROCESSES=<n> PDE_INVERSE_PROCESS_ID=<i> \
     python tests/multihost_worker.py
 """
 
@@ -23,7 +23,7 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main() -> None:
-    from pde_inverse_tpu.main import maybe_init_distributed
+    from pde_inverse.main import maybe_init_distributed
 
     maybe_init_distributed()
 
@@ -31,14 +31,14 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pde_inverse_tpu.config import BackendConfig
-    from pde_inverse_tpu.parallel.mesh import build_mesh
+    from pde_inverse.config import BackendConfig
+    from pde_inverse.parallel.mesh import build_mesh
 
     proc_id = jax.process_index()
     n_procs = jax.process_count()
     n_local = jax.local_device_count()
     n_global = jax.device_count()
-    assert n_procs == int(os.environ["PDE_INVERSE_TPU_NUM_PROCESSES"])
+    assert n_procs == int(os.environ["PDE_INVERSE_NUM_PROCESSES"])
     assert n_global == n_procs * n_local, (n_global, n_procs, n_local)
 
     spec = build_mesh(BackendConfig())

@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from pde_inverse_tpu import config as config_lib
-from pde_inverse_tpu.config import Config, apply_overrides, preset
+from pde_inverse import config as config_lib
+from pde_inverse.config import Config, apply_overrides, preset
 
 
 class TestOverrides:
@@ -107,7 +107,7 @@ class TestYaml:
 
 class TestCLIParse:
     def test_parse_args_preset_and_overrides(self):
-        from pde_inverse_tpu.main import parse_args
+        from pde_inverse.main import parse_args
 
         cfg = parse_args(["preset=KOU", "seed=5", "train.steps_per_chunk=10"])
         assert cfg.seed == 5
@@ -115,7 +115,7 @@ class TestCLIParse:
         assert cfg.solver.train.batch_size_0T == 250000
 
     def test_parse_args_config_file(self, tmp_path):
-        from pde_inverse_tpu.main import parse_args
+        from pde_inverse.main import parse_args
 
         path = str(tmp_path / "c.yaml")
         with open(path, "w") as f:

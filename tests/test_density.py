@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.density.estimation import create_lr_schedule, estimate_log_density
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.density.estimation import create_lr_schedule, estimate_log_density
+from pde_inverse.problems import KineticFokkerPlanckGMM
 
 
 def _tiny_offline_cfg():

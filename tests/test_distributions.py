@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.distributions import (
+from pde_inverse.distributions import (
     BallUniform,
     Gaussian,
     GaussianMixture,
@@ -14,7 +14,7 @@ from pde_inverse_tpu.distributions import (
     UniformMixture,
     box_boundary_uniforms,
 )
-from pde_inverse_tpu.potentials import GMMPotential, QuadraticPotential, VoidPotential
+from pde_inverse.potentials import GMMPotential, QuadraticPotential, VoidPotential
 
 
 def _spd(key, d):

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.density.flows import (
+from pde_inverse.density.flows import (
     MaskedNormalizingFlow,
     build_realnvp,
     make_masks,
 )
-from pde_inverse_tpu.ops.gaussian import gaussian_logdensity
+from pde_inverse.ops.gaussian import gaussian_logdensity
 
 
 def _flow(dim=2, **kw):

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.losses import fourier_meanfield as fmf
-from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-from pde_inverse_tpu.models.fourier_kernel import FourierKernelModel
-from pde_inverse_tpu.ops import autodiff as ad
-from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.losses import fourier_meanfield as fmf
+from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+from pde_inverse.models.fourier_kernel import FourierKernelModel
+from pde_inverse.ops import autodiff as ad
+from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
 
 @pytest.fixture
@@ -249,7 +249,7 @@ class TestFourierMeanfield:
         reduces the ground-truth gap."""
         import optax
 
-        from pde_inverse_tpu.methods import ConsistencyBased
+        from pde_inverse.methods import ConsistencyBased
 
         cfg = _cfg()
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -310,7 +310,7 @@ class TestMultiscaleInit:
         assert hi_m / lo_m > 2.5 * (hi_n / lo_n), (hi_m / lo_m, hi_n / lo_n)
         # and the collapse path still trains through it
         cfg = _cfg("neural_network.fourier_init=multiscale")
-        from pde_inverse_tpu.methods import ConsistencyBased
+        from pde_inverse.methods import ConsistencyBased
 
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
         method = ConsistencyBased(pde_instance=inst, cfg=cfg, rng=rng)

@@ -13,7 +13,7 @@ import pkgutil
 import subprocess
 import sys
 
-import pde_inverse_tpu
+import pde_inverse
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,9 +31,9 @@ print("clean")
 
 
 def _all_modules():
-    names = ["pde_inverse_tpu"]
+    names = ["pde_inverse"]
     for info in pkgutil.walk_packages(
-        pde_inverse_tpu.__path__, prefix="pde_inverse_tpu."
+        pde_inverse.__path__, prefix="pde_inverse."
     ):
         names.append(info.name)
     return names
@@ -51,6 +51,34 @@ def test_package_import_initializes_no_backend():
         text=True,
         env=env,
         timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "clean" in out.stdout
+
+
+_MAIN_PATH_PROBE = r"""
+import sys
+from pde_inverse.main import parse_args, run
+cfg = parse_args(["preset=KOU", "solver.train.sample_per_time=32",
+                  "solver.train.n_time_stamps=4", "solver.train.batch_size_init=32",
+                  "solver.train.batch_size_terminal=32", "train.number_of_iterations=4",
+                  "train.steps_per_chunk=2", "logging.writer=none"])
+run(cfg)
+optional = ("flax", "orbax", "yaml", "matplotlib", "wandb")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in optional)
+assert not loaded, f"the main path imported optional packages: {loaded}"
+print("clean")
+"""
+
+
+def test_kou_main_path_imports_no_optional_package():
+    """The default training path (CLI -> ConsistencyBased -> Trainer) needs
+    none of flax, orbax, yaml, matplotlib or wandb: they stay lazy
+    imports behind their options."""
+    env = dict(os.environ, PYTHONPATH=_REPO, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _MAIN_PATH_PROBE],
+        capture_output=True, text=True, env=env, timeout=300, cwd=_REPO,
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "clean" in out.stdout

@@ -1,4 +1,4 @@
-"""Equality gates for the MXU-shaped blockwise pairwise KMV path.
+"""Equality gates for the matmul-shaped blockwise pairwise KMV path.
 
 The blockwise reformulation (losses/pairwise_blockwise.py) must reproduce
 the generic autodiff chunked reduction — stats, loss, diagnostic gap, AND
@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import BackendConfig, Config, apply_overrides
-from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-from pde_inverse_tpu.losses import pairwise_blockwise as bw
-from pde_inverse_tpu.models.mlp import PotentialMLP
-from pde_inverse_tpu.parallel.mesh import build_mesh
-from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+from pde_inverse.config import BackendConfig, Config, apply_overrides
+from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+from pde_inverse.losses import pairwise_blockwise as bw
+from pde_inverse.models.mlp import PotentialMLP
+from pde_inverse.parallel.mesh import build_mesh
+from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
 
 @pytest.fixture
@@ -46,9 +46,9 @@ def _cfg(dim=2, *extra):
     )
 
 
-def _setup(rng, n=14, n_time=3, dim=2, **mlp_kwargs):
+def _setup(rng, n=14, n_time=3, dim=2, hidden=(16, 16), **mlp_kwargs):
     inst = KineticMcKeanVlasovQuadratic(_cfg(dim), rng)
-    net = PotentialMLP(hidden_dims=[16, 16], feature_dim=8, **mlp_kwargs)
+    net = PotentialMLP(hidden_dims=list(hidden), feature_dim=8, **mlp_kwargs)
     params = net.init(jax.random.PRNGKey(0), jnp.zeros(dim))
     data = {
         "0T": inst.sample_ground_truth(rng, (n_time, n)),
@@ -63,6 +63,12 @@ MLP_VARIANTS = {
     "quad_head": {"quadratic_head": True},
     "fourier+quad": {"fourier_features": 4, "quadratic_head": True},
     "silu": {"activation": "silu"},
+    "softplus": {"activation": "softplus"},
+    "gelu": {"activation": "gelu"},
+    "tanh-depth1": {"hidden": (16,)},
+    "tanh-depth3": {"hidden": (16, 12, 16)},
+    "silu-depth3": {"activation": "silu", "hidden": (12, 12, 12)},
+    "softplus-depth1": {"activation": "softplus", "hidden": (20,)},
 }
 
 
@@ -77,7 +83,7 @@ class TestBlockwiseStats:
         v = v.reshape(-1, nt, d)
 
         Phi = lambda xi: net.apply(params, xi)[0]
-        from pde_inverse_tpu.ops import autodiff as ad
+        from pde_inverse.ops import autodiff as ad
 
         generic = kmv_loss._pairwise_stats(
             lambda _p, diff, vf: {
@@ -110,7 +116,7 @@ class TestBlockwiseStats:
 
 
 class TestBlockwiseLoss:
-    @pytest.mark.parametrize("variant", ["plain", "fourier+quad"])
+    @pytest.mark.parametrize("variant", ["plain", "fourier+quad", "silu", "softplus-depth1"])
     def test_loss_and_grad_match_generic(self, rng, variant):
         inst, net, params, data = _setup(rng, **MLP_VARIANTS[variant])
         out_gen = kmv_loss.value_and_grad_fn(
@@ -195,7 +201,7 @@ class TestMethodDispatch:
     def test_method_uses_blockwise_for_mlp(self, rng, monkeypatch):
         """ConsistencyBased routes non-parametric KMV through the blockwise
         path (and kmv_blockwise=False disables it)."""
-        from pde_inverse_tpu.methods import ConsistencyBased
+        from pde_inverse.methods import ConsistencyBased
 
         cfg = _cfg()
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -220,3 +226,57 @@ class TestMethodDispatch:
         net2, params2 = method_off.create_model_fn()
         method_off.value_and_grad_fn(net2.apply, params2, rng)
         assert not calls.get("hit")
+
+
+def _dot_precisions(fn, *args):
+    """Precision params of every dot_general in fn's jaxpr (nested too)."""
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return found
+
+
+class TestPairPrecision:
+    """The pair reduction pins float32 matmuls (TF32 products measured past
+    the loss's tolerance on the card), forward and backward, whatever the
+    caller's default precision."""
+
+    @pytest.mark.parametrize("default", [None, "bfloat16", "tensorfloat32"])
+    def test_forward_and_backward_dots_are_float32(self, rng, default):
+        inst, net, params, data = _setup(rng, n=6, **MLP_VARIANTS["quad_head"])
+        x, v = jnp.split(data["0T"], 2, -1)
+        nt = data["tau_0T"].shape[0]
+        x = x.reshape(-1, nt, x.shape[-1])
+        v = v.reshape(-1, nt, v.shape[-1])
+
+        def loss(p):
+            s = bw.mlp_pairwise_stats(net, p, x, v, x)
+            return jnp.sum(s["hess"]) + jnp.sum(s["nabla"] ** 2)
+
+        hi = jax.lax.Precision.HIGHEST
+        with jax.default_matmul_precision(default):
+            fwd = _dot_precisions(loss, params)
+            bwd = _dot_precisions(jax.grad(loss), params)
+        assert fwd and len(bwd) > len(fwd)
+        assert all(p == (hi, hi) for p in fwd + bwd), set(fwd + bwd)
+
+    def test_pinned_under_ref_sharding(self, rng):
+        inst, net, params, data = _setup(rng, n=8)
+        x, v = jnp.split(data["0T"], 2, -1)
+        nt = data["tau_0T"].shape[0]
+        x = x.reshape(-1, nt, x.shape[-1])
+        v = v.reshape(-1, nt, v.shape[-1])
+        spec = build_mesh(BackendConfig(data_axis_size=4, ref_axis_size=2))
+        hi = jax.lax.Precision.HIGHEST
+        with jax.default_matmul_precision("tensorfloat32"):
+            precs = _dot_precisions(
+                lambda p: bw.mlp_pairwise_stats(net, p, x, v, x, mesh_spec=spec)["hess"], params
+            )
+        assert precs and all(p == (hi, hi) for p in precs)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import BackendConfig, Config, apply_overrides
-from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-from pde_inverse_tpu.parallel.mesh import build_mesh
-from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+from pde_inverse.config import BackendConfig, Config, apply_overrides
+from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+from pde_inverse.parallel.mesh import build_mesh
+from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
 
 @pytest.fixture

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.losses import fokker_planck as fp_loss
-from pde_inverse_tpu.losses import kinetic_fokker_planck as kfp_loss
-from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.problems import (
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.losses import fokker_planck as fp_loss
+from pde_inverse.losses import kinetic_fokker_planck as kfp_loss
+from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.problems import (
     FokkerPlanck,
     KineticFokkerPlanckOU,
     KineticMcKeanVlasovQuadratic,
@@ -283,7 +283,7 @@ class TestKMVLoss:
         full-field penalty; (b) with a nonzero head the loss gap is
         exactly lam * E[||g||^2 - ||g - g_quad||^2]; (c) without a quad
         head the flag raises."""
-        from pde_inverse_tpu.models.mlp import PotentialMLP
+        from pde_inverse.models.mlp import PotentialMLP
 
         inst, _, _, data = self._setup(rng)
         lam, n_probe, d = 0.37, 32, 2
@@ -393,7 +393,7 @@ class TestKMVLoss:
     def test_method_dispatches_closed_form(self, rng):
         """ConsistencyBased enables the fast path exactly for the
         parametric QuadraticFormModel (and the config can disable it)."""
-        from pde_inverse_tpu.methods import ConsistencyBased
+        from pde_inverse.methods import ConsistencyBased
 
         cfg = _cfg("Kinetic-McKean-Vlasov", 2)
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -401,7 +401,7 @@ class TestKMVLoss:
         net, params = method.create_model_fn()
         assert method._kmv_closed_form()
 
-        from pde_inverse_tpu.config import apply_overrides
+        from pde_inverse.config import apply_overrides
 
         cfg_off = apply_overrides(cfg, ["solver.train.kmv_closed_form=False"])
         method_off = ConsistencyBased(pde_instance=inst, cfg=cfg_off, rng=rng)
@@ -418,8 +418,8 @@ class TestKMVLoss:
         from kmv_field_reg to kmv_field_reg_floor: the step-annealed loss at
         step s equals the constant-lambda loss evaluated at lambda(s), for
         lambda(0)=lam0, lambda(D/2)=(lam0+floor)/2, lambda(>=D)=floor."""
-        from pde_inverse_tpu.config import apply_overrides
-        from pde_inverse_tpu.methods import ConsistencyBased
+        from pde_inverse.config import apply_overrides
+        from pde_inverse.methods import ConsistencyBased
 
         lam0, floor, D = 0.32, 0.02, 100
 

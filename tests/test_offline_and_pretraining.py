@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM, KineticFokkerPlanckOU
-from pde_inverse_tpu.training.pretraining import potential_pretraining
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.problems import KineticFokkerPlanckGMM, KineticFokkerPlanckOU
+from pde_inverse.training.pretraining import potential_pretraining
 
 
 def _offline_cfg(extra=()):
@@ -84,7 +84,7 @@ class TestPretraining:
             inst, net.apply, params, rng, steps=300, batch_size=256
         )
         x = inst.distribution_initial.sample(512, rng)[:, :2]
-        from pde_inverse_tpu.ops import autodiff as ad
+        from pde_inverse.ops import autodiff as ad
 
         V = lambda xi: net.apply(pre, xi)[0]
         target = 0.1 * ad.batched_grad(inst.V_true_fn, x)
@@ -96,7 +96,7 @@ class TestPretraining:
 
 class TestPlotting:
     def test_plots_write_files(self, rng, tmp_path):
-        from pde_inverse_tpu.utils import plotting
+        from pde_inverse.utils import plotting
 
         z = np.asarray(jax.random.normal(rng, (5, 64, 4)))
         gif = plotting.plot_velocity_animation(z, str(tmp_path / "vel.gif"))
@@ -106,7 +106,7 @@ class TestPlotting:
         heat = plotting.plot_density_heatmap(z[0], str(tmp_path / "heat.png"))
         assert os.path.getsize(heat) > 0
 
-        from pde_inverse_tpu.ops.gaussian import gaussian_logdensity
+        from pde_inverse.ops.gaussian import gaussian_logdensity
 
         fn = lambda t, xy: gaussian_logdensity(xy, jnp.zeros(2), jnp.eye(2))
         panel = plotting.plot_density_trajectory(
@@ -117,9 +117,9 @@ class TestPlotting:
 
 class TestPlotFnAndDataUtils:
     def test_method_plot_fn(self, rng, tmp_path):
-        from pde_inverse_tpu.config import Config, apply_overrides
-        from pde_inverse_tpu.methods import ConsistencyBased
-        from pde_inverse_tpu.problems import KineticFokkerPlanckOU
+        from pde_inverse.config import Config, apply_overrides
+        from pde_inverse.methods import ConsistencyBased
+        from pde_inverse.problems import KineticFokkerPlanckOU
 
         cfg = apply_overrides(
             Config(),
@@ -132,8 +132,8 @@ class TestPlotFnAndDataUtils:
         assert os.path.getsize(out) > 0
 
     def test_infinite_batches(self, rng):
-        from pde_inverse_tpu.distributions import Gaussian, Uniform
-        from pde_inverse_tpu.utils.data import infinite_batches
+        from pde_inverse.distributions import Gaussian, Uniform
+        from pde_inverse.utils.data import infinite_batches
 
         it = infinite_batches(
             rng,
@@ -146,8 +146,8 @@ class TestPlotFnAndDataUtils:
         assert not np.allclose(b1["space"], b2["space"])
 
     def test_save_config(self, tmp_path):
-        from pde_inverse_tpu.config import Config
-        from pde_inverse_tpu.utils.data import save_config
+        from pde_inverse.config import Config
+        from pde_inverse.utils.data import save_config
 
         p = save_config(Config(), str(tmp_path))
         import json
@@ -156,7 +156,7 @@ class TestPlotFnAndDataUtils:
         assert data["train"]["number_of_iterations"] == 80000
 
     def test_volume_nd_ball(self):
-        from pde_inverse_tpu.ops.autodiff import volume_nd_ball
+        from pde_inverse.ops.autodiff import volume_nd_ball
 
         np.testing.assert_allclose(volume_nd_ball(2), np.pi, rtol=1e-6)
         np.testing.assert_allclose(volume_nd_ball(3), 4 / 3 * np.pi, rtol=1e-6)
@@ -165,7 +165,7 @@ class TestPlotFnAndDataUtils:
 class TestOfflineExactOUFamily:
     """Offline datasets for the OU-family instances (exact Gaussian law) and
     the offline KMV path they enable — capability cells absent from the
-    reference AND from round 1 (VERDICT r1 missing #6)."""
+    reference AND from round 1."""
 
     def _kou_cfg(self, name="Kinetic-Fokker-Planck", extra=()):
         return apply_overrides(
@@ -208,7 +208,7 @@ class TestOfflineExactOUFamily:
         assert abs(chi2_mean - 4.0) < 0.15, chi2_mean
 
     def test_kmv_offline_value_and_grad(self, rng):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = self._kou_cfg(name="Kinetic-McKean-Vlasov")
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -225,11 +225,11 @@ class TestOfflineExactOUFamily:
     def test_kmv_offline_weights_match_shared_grid(self, rng):
         """When every trajectory sits on the SAME grid, the per-sample
         weight path must agree with the shared-grid path."""
-        from pde_inverse_tpu.losses.kinetic_mckean_vlasov import (
+        from pde_inverse.losses.kinetic_mckean_vlasov import (
             compute_weights,
             compute_weights_per_sample,
         )
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = self._kou_cfg(name="Kinetic-McKean-Vlasov")
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -247,11 +247,11 @@ class TestOfflineExactOUFamily:
     def test_kmv_offline_grouped_weights_match_per_sample(self, rng):
         """compute_weights_grouped (one oracle eval per (group, stamp))
         must equal the per-element path on the same points/stamps."""
-        from pde_inverse_tpu.losses.kinetic_mckean_vlasov import (
+        from pde_inverse.losses.kinetic_mckean_vlasov import (
             compute_weights_grouped,
             compute_weights_per_sample,
         )
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = self._kou_cfg(name="Kinetic-McKean-Vlasov")
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -273,8 +273,8 @@ class TestOfflineExactOUFamily:
         """With sample_0T_size divisible by the G=64 shift groups, the
         offline policy surfaces 'tau_0T_groups' with group-major rows, and
         the grouped loss equals the per-trajectory path on the same data."""
-        from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = self._kou_cfg(
             name="Kinetic-McKean-Vlasov",
@@ -310,11 +310,11 @@ class TestOfflineExactOUFamily:
         """Host-streaming offline mode: the trajectory store stays a host
         memmap (never jnp.asarray'd), the trainer gathers per-chunk batches
         host-side, and training steps run with finite losses.  This is the
-        '>HBM store' training path (round-2 VERDICT missing #4)."""
+        '>device-memory store' training path."""
         import numpy as np
 
-        from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
-        from pde_inverse_tpu.training.trainer import Trainer
+        from pde_inverse.problems import KineticFokkerPlanckGMM
+        from pde_inverse.training.trainer import Trainer
 
         store = str(tmp_path / "stream_store")
         cfg = _offline_cfg(
@@ -349,7 +349,7 @@ class TestOfflineExactOUFamily:
         (resume reproducibility depends on it)."""
         import numpy as np
 
-        from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
+        from pde_inverse.problems import KineticFokkerPlanckGMM
 
         store = str(tmp_path / "det_store")
         cfg = _offline_cfg(
@@ -393,7 +393,7 @@ class TestOfflineExactOUFamily:
                 "solver.train.batch_size_terminal=0",
             ],
         )
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
         method = ConsistencyBased(pde_instance=inst, cfg=cfg, rng=rng)
@@ -409,8 +409,8 @@ class TestOfflineExactOUFamily:
         assert np.isfinite(float(rel))
 
     def test_kmv_missing_stamps_raises(self, rng):
-        from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv_loss
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.losses import kinetic_mckean_vlasov as kmv_loss
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = self._kou_cfg(name="Kinetic-McKean-Vlasov")
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -435,9 +435,9 @@ class TestDatasetPersistence:
     def test_memmap_store_roundtrip(self, rng, tmp_path):
         """Directory (non-.npz) paths use the sharded raw array store: the
         store generates in shards, reloads as memmap views, and a second
-        instance maps the SAME data (scale-robust persistence, VERDICT r1
+        instance maps the SAME data (scale-robust persistence, round 1
         missing #5)."""
-        from pde_inverse_tpu.utils.data import load_array_store
+        from pde_inverse.utils.data import load_array_store
 
         path = str(tmp_path / "store")
         # shard the generation: initial=256 with a tiny element budget

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.ops import (
+from pde_inverse.ops import (
     autodiff as ad,
     gaussian as gops,
     ou,

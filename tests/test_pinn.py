@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.methods_pinn import PINN
-from pde_inverse_tpu.problems import FokkerPlanck
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.methods_pinn import PINN
+from pde_inverse.problems import FokkerPlanck
 
 
 def _cfg(dim=2, extra=()):
@@ -46,7 +46,7 @@ class TestPINN:
         assert float(jnp.sqrt(jnp.mean(r**2))) < 5e-3
 
     def test_registry_dispatch(self, rng):
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.registry import get_method
 
         cfg = _cfg()
         assert get_method(cfg) is PINN
@@ -82,7 +82,7 @@ class TestPINN:
         """The learned-log-density branch (autodiff derivatives) runs and
         matches the oracle branch approximately when handed the exact
         Gaussian log-density as the 'learned' callable."""
-        from pde_inverse_tpu.ops.gaussian import gaussian_logdensity
+        from pde_inverse.ops.gaussian import gaussian_logdensity
 
         dim = 2
         cfg = _cfg(dim)
@@ -108,10 +108,10 @@ class TestPINN:
 class TestPINNDispatchGuards:
     """registry.get_method must reject instance/solver combos the PINN
     cannot serve, with a clear error instead of an AttributeError deep in
-    tracing (VERDICT r1 weak #3)."""
+    tracing."""
 
     def test_kinetic_gmm_rejected(self):
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.registry import get_method
 
         cfg = apply_overrides(
             Config(),
@@ -125,7 +125,7 @@ class TestPINNDispatchGuards:
             get_method(cfg)
 
     def test_kmv_rejected(self):
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.registry import get_method
 
         cfg = apply_overrides(
             Config(),
@@ -135,7 +135,7 @@ class TestPINNDispatchGuards:
             get_method(cfg)
 
     def test_learned_density_requires_offline(self):
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.registry import get_method
 
         cfg = apply_overrides(
             Config(),
@@ -150,7 +150,7 @@ class TestPINNDispatchGuards:
             get_method(cfg)
 
     def test_learned_density_kinetic_rejected(self):
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.registry import get_method
 
         cfg = apply_overrides(
             Config(),
@@ -169,7 +169,7 @@ class TestLearnedDensityPipeline:
     the learned flow (the reference's dormant main.py:50 intent)."""
 
     def test_cli_learned_density_runs(self, tmp_path):
-        from pde_inverse_tpu.main import run
+        from pde_inverse.main import run
 
         cfg = apply_overrides(
             Config(),
@@ -203,7 +203,7 @@ class TestLearnedDensityPipeline:
 
 class TestPINNKinetic:
     def _setup(self, rng, dim=2):
-        from pde_inverse_tpu.problems import KineticFokkerPlanckOU
+        from pde_inverse.problems import KineticFokkerPlanckOU
 
         cfg = apply_overrides(
             Config(),
@@ -216,7 +216,7 @@ class TestPINNKinetic:
                 "solver.train.sample_per_time=256",
             ],
         )
-        from pde_inverse_tpu.methods_pinn import PINNKinetic
+        from pde_inverse.methods_pinn import PINNKinetic
 
         inst = KineticFokkerPlanckOU(cfg, rng)
         method = PINNKinetic(pde_instance=inst, cfg=cfg, rng=rng)
@@ -224,8 +224,8 @@ class TestPINNKinetic:
         return cfg, inst, method, net, params
 
     def test_registry_dispatch_kinetic(self, rng):
-        from pde_inverse_tpu.methods_pinn import PINNKinetic
-        from pde_inverse_tpu.registry import get_method
+        from pde_inverse.methods_pinn import PINNKinetic
+        from pde_inverse.registry import get_method
 
         cfg, *_ = self._setup(rng)
         assert get_method(cfg) is PINNKinetic

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import BackendConfig, Config, apply_overrides
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.parallel.mesh import build_mesh
-from pde_inverse_tpu.problems import KineticFokkerPlanckOU
+from pde_inverse.config import BackendConfig, Config, apply_overrides
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.parallel.mesh import build_mesh
+from pde_inverse.problems import KineticFokkerPlanckOU
 
 
 def _cfg():

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_inverse_tpu.config import Config, apply_overrides
-from pde_inverse_tpu.methods import ConsistencyBased
-from pde_inverse_tpu.problems import KineticFokkerPlanckGMM
+from pde_inverse.config import Config, apply_overrides
+from pde_inverse.methods import ConsistencyBased
+from pde_inverse.problems import KineticFokkerPlanckGMM
 
 
 def make_cfg(extra=()):
@@ -117,8 +117,8 @@ class TestDataPolicy:
     def test_loss_with_unit_weights_is_identical(self, rng):
         """Adding w = 1 arrays must not change the loss or gradient at all
         (same reductions, weights multiply by one)."""
-        from pde_inverse_tpu.losses import kinetic_fokker_planck as kfp
-        from pde_inverse_tpu.models.mlp import PotentialMLP
+        from pde_inverse.losses import kinetic_fokker_planck as kfp
+        from pde_inverse.models.mlp import PotentialMLP
 
         cfg = make_cfg()
         inst = KineticFokkerPlanckGMM(cfg, rng)
@@ -154,7 +154,7 @@ class TestDataPolicy:
         (this is the end-to-end unbiasedness gate)."""
         from functools import partial
 
-        from pde_inverse_tpu.models.mlp import PotentialMLP
+        from pde_inverse.models.mlp import PotentialMLP
 
         cfg_p = make_cfg(["solver.train.batch_size_0T=256"])
         cfg_w = make_cfg(
@@ -200,7 +200,7 @@ class TestGuards:
             KineticFokkerPlanckGMM(cfg, rng)
 
     def test_exact_offline_is_rejected(self, rng):
-        from pde_inverse_tpu.problems import KineticFokkerPlanckOU
+        from pde_inverse.problems import KineticFokkerPlanckOU
 
         cfg = apply_overrides(
             Config(),
@@ -219,7 +219,7 @@ class TestGuards:
         """The exact-law weighted sampler needs the grid_time batch
         layout; random-time int batches have no (sample, stamp) weight
         grid."""
-        from pde_inverse_tpu.problems import KineticFokkerPlanckOU
+        from pde_inverse.problems import KineticFokkerPlanckOU
 
         cfg = apply_overrides(
             Config(),
@@ -257,7 +257,7 @@ class TestExactLawSampler:
     N(m_t, s^2 P_t) with exact weights from the sampling noise itself."""
 
     def test_weights_bounded_and_unit_mean(self, rng):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         s = 1.5
         cfg = _kmv_cfg(f"pde_instance.init_broaden={s}")
@@ -272,7 +272,7 @@ class TestExactLawSampler:
     def test_weighted_moment_is_unbiased(self, rng):
         """E_q[w ||z||^2] per stamp must equal the oracle's exact
         tr(P_t) + ||m_t||^2."""
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = _kmv_cfg("pde_instance.init_broaden=1.5")
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -288,7 +288,7 @@ class TestExactLawSampler:
         np.testing.assert_allclose(est, np.asarray(exact), rtol=0.03)
 
     def test_s1_reproduces_plain_sampler_bitwise(self, rng):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = _kmv_cfg()  # init_broaden = 1.0
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -306,7 +306,7 @@ class TestExactLawKMVLoss:
     (outer point means and inner mean-field ref statistics) reweighted."""
 
     def _quad_setup(self, rng, broaden):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         extra = (
             [f"pde_instance.init_broaden={broaden}"] if broaden > 1 else []
@@ -328,7 +328,7 @@ class TestExactLawKMVLoss:
         """w = 1 arrays through the weighted closed-form collapse must
         reproduce the plain path to float tolerance (the weighted branch
         uses the algebraically-equal uncentered moment form)."""
-        from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv
+        from pde_inverse.losses import kinetic_mckean_vlasov as kmv
 
         inst, net, params, method = self._quad_setup(rng, 1.0)
         data = jax.jit(method.sample_data)(jax.random.fold_in(rng, 5))
@@ -353,9 +353,9 @@ class TestExactLawKMVLoss:
     def test_unit_weights_identity_fourier(self, rng):
         """Same identity through the fourier-kernel collapse (with
         quadratic head: exercises the weighted _quad_head_stats path)."""
-        from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv
-        from pde_inverse_tpu.models.fourier_kernel import FourierKernelModel
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.losses import kinetic_mckean_vlasov as kmv
+        from pde_inverse.models.fourier_kernel import FourierKernelModel
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = _kmv_cfg()
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -387,11 +387,11 @@ class TestExactLawKMVLoss:
         w, both weighted collapse paths must reproduce the brute-force
         weighted pairwise sums (1/m) sum_j w_{j,t} {Phi, grad Phi,
         v^T Hess Phi v}(x - r_j) exactly (to float tolerance)."""
-        from pde_inverse_tpu.losses import fourier_meanfield as fmf
-        from pde_inverse_tpu.losses.kinetic_mckean_vlasov import (
+        from pde_inverse.losses import fourier_meanfield as fmf
+        from pde_inverse.losses.kinetic_mckean_vlasov import (
             _quadratic_meanfield_stats,
         )
-        from pde_inverse_tpu.models.fourier_kernel import FourierKernelModel
+        from pde_inverse.models.fourier_kernel import FourierKernelModel
 
         n, nt, d = 9, 3, 2
         kx, kv, kw, kp = jax.random.split(rng, 4)
@@ -460,8 +460,8 @@ class TestExactLawKMVLoss:
     def test_pairwise_paths_are_rejected(self, rng):
         """Importance weights only thread through the collapse paths; the
         generic O(n^2) pairwise reduction must refuse them loudly."""
-        from pde_inverse_tpu.losses import kinetic_mckean_vlasov as kmv
-        from pde_inverse_tpu.models.mlp import PotentialMLP
+        from pde_inverse.losses import kinetic_mckean_vlasov as kmv
+        from pde_inverse.models.mlp import PotentialMLP
 
         inst, _, _, method = self._quad_setup(rng, 1.5)
         data = jax.jit(method.sample_data)(jax.random.fold_in(rng, 7))
@@ -479,7 +479,7 @@ class TestAnnealedDose:
     late unweighted bulk)."""
 
     def _quad_setup(self, rng, *extra):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg = _kmv_cfg(*extra)
         inst = KineticMcKeanVlasovQuadratic(cfg, rng)
@@ -488,7 +488,7 @@ class TestAnnealedDose:
         return inst, net, params, method
 
     def test_explicit_s_matches_config_s_bitwise(self, rng):
-        from pde_inverse_tpu.problems import KineticMcKeanVlasovQuadratic
+        from pde_inverse.problems import KineticMcKeanVlasovQuadratic
 
         cfg_a = _kmv_cfg("pde_instance.init_broaden=1.3")
         cfg_b = _kmv_cfg("pde_instance.init_broaden=1.7")
